@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""Differential harness: TPU engine vs scalar host engine
+"""Differential harness: device engine vs scalar host engine
 (parity: run_comparison_experiment.sh:57-113).
 
-Runs the tiled TPU selection and the sequential numpy host engine on the
+Runs the tiled device selection and the sequential numpy host engine on the
 same sketch files at a low threshold (the reference compares at tau=0.01 to
 surface many pairs, run_comparison_experiment.sh:62-64), joins on the pair
 key, and reports per-pair |delta sim|. The reference tolerated 1e-6 between
@@ -24,7 +24,7 @@ def main():
     ap.add_argument("-a", dest="aux_bytes", type=int, default=32)
     ap.add_argument("-t", dest="tau", type=float, default=0.01)
     ap.add_argument("-c", dest="criterion", default="smh_a")
-    ap.add_argument("-o", dest="out", default="comparacion_tpu_host.csv")
+    ap.add_argument("-o", dest="out", default="comparacion_device_host.csv")
     ap.add_argument("--estimator-delta", action="store_true",
                     help="additionally report the ORIGINAL-vs-MLE "
                          "similarity delta over the emitted pairs - the "
@@ -34,17 +34,17 @@ def main():
                          "(run_comparison_experiment.sh:70,101-106)")
     args = ap.parse_args()
 
-    from cuda_selection_criteria_tpu.models import SketchBank
-    from cuda_selection_criteria_tpu.parallel.selection import (
+    from cuda_selection_criteria.models import SketchBank
+    from cuda_selection_criteria.parallel.selection import (
         SelectionParams, select_pairs,
     )
-    from cuda_selection_criteria_tpu.utils.filelist import load_file_list
-    from cuda_selection_criteria_tpu.utils import hostref
+    from cuda_selection_criteria.utils.filelist import load_file_list
+    from cuda_selection_criteria.utils import hostref
 
     files = load_file_list(args.list_file)
     bank = SketchBank.from_sketch_files(files, criterion=args.criterion,
                                         aux_bytes=args.aux_bytes)
-    tpu = select_pairs(bank, SelectionParams(tau=args.tau,
+    dev = select_pairs(bank, SelectionParams(tau=args.tau,
                                              criterion=args.criterion,
                                              aux_bytes=args.aux_bytes))
     host = hostref.select_pairs_host(bank, args.tau, args.criterion)
@@ -52,17 +52,17 @@ def main():
     def key(a, b):
         return (a, b) if a <= b else (b, a)
 
-    tpu_map = {key(a, b): j for a, b, j in tpu}
+    dev_map = {key(a, b): j for a, b, j in dev}
     host_map = {key(a, b): j for a, b, j in host}
-    all_keys = sorted(set(tpu_map) | set(host_map))
+    all_keys = sorted(set(dev_map) | set(host_map))
 
     eps = 1e-6
     n_bad = 0
     with open(args.out, "w", newline="") as fh:
         w = csv.writer(fh, delimiter=";")
-        w.writerow(["par", "sim_tpu", "sim_host", "delta", "ok"])
+        w.writerow(["par", "sim_device", "sim_host", "delta", "ok"])
         for k in all_keys:
-            a = tpu_map.get(k)
+            a = dev_map.get(k)
             b = host_map.get(k)
             if a is None or b is None:
                 n_bad += 1
@@ -84,7 +84,7 @@ def main():
         # the number below documents the deviation magnitude (reference
         # bug #4 in SURVEY.md) from this codebase's own machinery.
         import numpy as np
-        from cuda_selection_criteria_tpu.ops import estimators
+        from cuda_selection_criteria.ops import estimators
         import jax.numpy as jnp
 
         name_pos = {n: i for i, n in enumerate(bank.names)}

@@ -1,12 +1,11 @@
-"""Confirm-stage host parallelism sweep (VERDICT r4 weak #5 / next #7).
+"""Confirm-stage host parallelism sweep.
 
 The confirm stage's host hot loop - the fused gather+max+histogram pass
 (native/fastx.fastx_pair_union_hist) feeding the vectorized f64 MLE
 (utils/hostref.ertl_mle_batch) - is pair-parallel via the native thread
-pool (fastx.cpp batch_run). This measures pairs/s vs thread count on
-THIS host and writes a CSV; on the 1-vCPU bench box the expected result
-is a flat line (documented ceiling, BASELINE.md), on a multi-core
-deployment host the same sweep demonstrates the scaling.
+pool (fastx.cpp batch_run). This measures pairs/s vs thread count on the
+host it runs on and writes a CSV; a single-core host gives a flat line,
+a multi-core host shows the scaling.
 
 Usage: python experiments/confirm_thread_sweep.py [--out csv] [--pairs N]
 """
@@ -30,11 +29,11 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--threads", type=int, nargs="*",
                     default=[1, 2, 4, 8])
-    ap.add_argument("--out", default="artifacts/r5/confirm_threads.csv")
+    ap.add_argument("--out", default="confirm_threads.csv")
     args = ap.parse_args(argv)
 
-    from cuda_selection_criteria_tpu.native import fastx
-    from cuda_selection_criteria_tpu.utils.hostref import ertl_mle_batch
+    from cuda_selection_criteria.native import fastx
+    from cuda_selection_criteria.utils.hostref import ertl_mle_batch
 
     if not fastx.available():
         print("libfastx.so unavailable", file=sys.stderr)

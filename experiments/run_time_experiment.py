@@ -8,7 +8,7 @@ script - which sweeps BOTH its CPU binary (time_smh) and its GPU binary
 (time_smh_cuda) into one CSV (run_time_experiment.sh:19-42) - this emits
 two implementation arms:
 
-  tpu   - the time_smh CLI (device build + device-screened sweeps)
+  gpu   - the time_smh CLI (device build + device-screened sweeps)
   host  - the all-host twin: the native C++ single-pass sketch builder
           (native/fastx.cpp, threaded like the reference's OpenMP loop)
           and the sequential scalar selection (utils/hostref
@@ -34,16 +34,16 @@ def main():
     ap.add_argument("--blocks", type=int, nargs="+", default=[512])
     ap.add_argument("-o", dest="out", default="experimento_smh_comparativo.csv")
     ap.add_argument("--no-host", action="store_true",
-                    help="skip the host arm (tpu rows only)")
+                    help="skip the host arm (device rows only)")
     args = ap.parse_args()
 
     import jax
 
-    from cuda_selection_criteria_tpu.cli import time_smh
+    from cuda_selection_criteria.cli import time_smh
 
-    # honest arm label: "tpu" only when the device arm really ran on an
+    # honest arm label: "gpu" only when the device arm really ran on an
     # accelerator backend
-    dev_impl = "tpu" if jax.default_backend() != "cpu" else "cpu-xla"
+    dev_impl = "gpu" if jax.default_backend() == "gpu" else "cpu-xla"
     rows = []
     if not args.no_host:
         rows += host_arm_rows(args)
@@ -71,14 +71,14 @@ def main():
 
 def host_arm_rows(args):
     """impl="host" rows: native C++ sketch build + sequential scalar
-    selection, timed with the same row schema as the tpu arm (the
+    selection, timed with the same row schema as the device arm (the
     reference's CPU binary arm, run_time_experiment.sh:19-27)."""
     import time
 
-    from cuda_selection_criteria_tpu.models.bank import (
+    from cuda_selection_criteria.models.bank import (
         SketchBank, build_bank_from_files, load_hll_bank, PRIMARY_P)
-    from cuda_selection_criteria_tpu.utils.filelist import load_file_list
-    from cuda_selection_criteria_tpu.utils.hostref import select_pairs_host
+    from cuda_selection_criteria.utils.filelist import load_file_list
+    from cuda_selection_criteria.utils.hostref import select_pairs_host
 
     files = load_file_list(args.list_file)
     tau = args.threshold

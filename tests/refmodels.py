@@ -1,7 +1,7 @@
 """Scalar pure-Python oracles mirroring the reference algorithms exactly.
 
 These are straight transcriptions of the reference's math (cited per
-function) used ONLY as test oracles for the vectorized TPU implementations.
+function) used ONLY as test oracles for the vectorized device implementations.
 They were validated to reproduce the committed sketch files and results.txt
 bit-for-bit before the framework was built.
 """

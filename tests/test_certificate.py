@@ -40,8 +40,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cuda_selection_criteria_tpu.ops import estimators, screen
-from cuda_selection_criteria_tpu.parallel.screened import (
+from cuda_selection_criteria.ops import estimators, screen
+from cuda_selection_criteria.parallel.screened import (
     SCREEN_DELTA_DEFAULT,
     SCREEN_DELTA_AUX,
 )

@@ -1,17 +1,17 @@
-"""Sweep checkpoint/resume + transient-fault retry (SURVEY section 5
-failure recovery - the reference has none: unchecked CUDA rc's, NDEBUG'd
-error peeks)."""
+"""Sweep checkpoint/resume, and device faults that must surface (SURVEY
+section 5 failure recovery - the reference has none: unchecked CUDA rc's,
+NDEBUG'd error peeks)."""
 
 import numpy as np
 import pytest
 
-from cuda_selection_criteria_tpu.parallel import screened
-from cuda_selection_criteria_tpu.parallel.screened import (
+from cuda_selection_criteria.parallel import screened
+from cuda_selection_criteria.parallel.screened import (
     ScreenPlan,
     select_pairs_screened,
 )
-from cuda_selection_criteria_tpu.parallel.selection import SelectionParams
-from cuda_selection_criteria_tpu.utils import resilience
+from cuda_selection_criteria.parallel.selection import SelectionParams
+from cuda_selection_criteria.utils.hostref import PairOracle
 from tests.test_screen import _make_bank
 
 
@@ -61,28 +61,43 @@ def test_checkpointed_sweep_matches_and_resumes(tmp_path):
                               checkpoint=ckpt)
 
 
-def test_transient_retry_classifier_and_loop():
-    class FakeXlaRuntimeError(Exception):
+def test_device_hist_failure_raises():
+    """A device histogram provider that fails mid-confirm must raise out
+    of PairOracle.confirm_pairs - no host fallback that finishes the run
+    and exits 0 - whether it fails on dispatch or on fetch."""
+    rng = np.random.default_rng(73)
+    bank = _make_bank(12, 10, 16, rng)
+    plan = ScreenPlan(bank, SelectionParams(tau=0.1, criterion="baseline"),
+                      256)
+    pairs = [(i, k) for i in range(bank.n) for k in range(i + 1, bank.n)]
+    good = plan.device_hist_fn(chunk=16, tau=0.1)
+
+    class DeviceFault(RuntimeError):
         pass
 
-    FakeXlaRuntimeError.__name__ = "XlaRuntimeError"
-    assert resilience.is_transient(FakeXlaRuntimeError("boom"))
-    assert resilience.is_transient(RuntimeError("FAILED_PRECONDITION: x"))
-    assert not resilience.is_transient(ValueError("bad argument"))
+    def broken(where):
+        calls = []
 
-    attempts = []
+        def fn(ii, kk):
+            raise DeviceFault("hist")
 
-    def flaky():
-        attempts.append(1)
-        if len(attempts) == 1:
-            raise RuntimeError("UNAVAILABLE: relay hiccup")
-        return 42
+        def dispatch(ii, kk):
+            calls.append(1)
+            if where == "dispatch" and len(calls) > 1:
+                raise DeviceFault("dispatch")
+            return good.dispatch(ii, kk)
 
-    assert resilience.run_with_transient_retry(flaky, backoff=0.01) == 42
-    assert len(attempts) == 2
+        def fetch(handle):
+            if where == "fetch":
+                raise DeviceFault("fetch")
+            return good.fetch(handle)
 
-    def hard():
-        raise ValueError("not transient")
+        fn.dispatch, fn.fetch, fn.tau = dispatch, fetch, good.tau
+        return fn
 
-    with pytest.raises(ValueError):
-        resilience.run_with_transient_retry(hard, backoff=0.01)
+    for where in ("dispatch", "fetch"):
+        oracle = PairOracle(bank.p, plan.regs_s, plan.e_s,
+                            criterion="baseline", tau=0.1, apply_cb=False,
+                            hist_fn=broken(where))
+        with pytest.raises(DeviceFault, match=where):
+            oracle.confirm_pairs(pairs, batch=8)

@@ -5,7 +5,7 @@ import math
 import numpy as np
 import jax.numpy as jnp
 
-from cuda_selection_criteria_tpu.ops import criteria, estimators
+from cuda_selection_criteria.ops import criteria, estimators
 import refmodels as rm
 
 RNG = np.random.default_rng(77)

@@ -26,8 +26,8 @@ def make_planted_bank():
     cluster share a base register row (3 registers flipped) and usually
     the base SMH buckets; cards are the true scalar MLE of each row, so
     within-cluster Jaccard is ~1 and the cascade selects those pairs."""
-    from cuda_selection_criteria_tpu.models.bank import SketchBank
-    from cuda_selection_criteria_tpu.utils import hostref
+    from cuda_selection_criteria.models.bank import SketchBank
+    from cuda_selection_criteria.utils import hostref
 
     rng = np.random.default_rng(99)
     n, p, m = 40, 8, 8
@@ -64,7 +64,7 @@ repo = sys.argv[5]
 sys.path.insert(0, repo)
 sys.path.insert(0, os.path.join(repo, "tests"))
 
-from cuda_selection_criteria_tpu.parallel import distributed
+from cuda_selection_criteria.parallel import distributed
 
 # Must run BEFORE anything touches the XLA backend.
 distributed.initialize(coordinator_address=coord, num_processes=nproc,
@@ -72,7 +72,7 @@ distributed.initialize(coordinator_address=coord, num_processes=nproc,
 assert jax.process_count() == nproc, jax.process_count()
 assert jax.process_index() == pid, jax.process_index()
 
-from cuda_selection_criteria_tpu.parallel.selection import SelectionParams
+from cuda_selection_criteria.parallel.selection import SelectionParams
 import test_distributed_procs as tdp
 
 bank = tdp.make_planted_bank()
@@ -121,11 +121,11 @@ def test_two_process_jax_distributed_multihost(tmp_path):
     keys = [set((i, j) for i, j, *_ in sh) for sh in shards]
     assert not (keys[0] & keys[1])
 
-    from cuda_selection_criteria_tpu.parallel import distributed
-    from cuda_selection_criteria_tpu.parallel.screened import (
+    from cuda_selection_criteria.parallel import distributed
+    from cuda_selection_criteria.parallel.screened import (
         select_pairs_screened,
     )
-    from cuda_selection_criteria_tpu.parallel.selection import SelectionParams
+    from cuda_selection_criteria.parallel.selection import SelectionParams
 
     bank = make_planted_bank()
     params = SelectionParams(tau=0.2, criterion="smh_a")

@@ -7,8 +7,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cuda_selection_criteria_tpu.ops import estimators, hll_build
-from cuda_selection_criteria_tpu.utils import formats
+from cuda_selection_criteria.ops import estimators, hll_build
+from cuda_selection_criteria.utils import formats
 import refmodels as rm
 from conftest import REFERENCE, reference_available
 

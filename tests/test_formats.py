@@ -7,7 +7,7 @@ import struct
 import numpy as np
 import pytest
 
-from cuda_selection_criteria_tpu.utils import formats
+from cuda_selection_criteria.utils import formats
 from conftest import REFERENCE, reference_available
 
 RNG = np.random.default_rng(3)
@@ -113,7 +113,7 @@ def test_rewrite_committed_file_identical_raw_bytes(tmp_path):
 def test_bank_save_load_roundtrip(tmp_path):
     """Consolidated bank checkpoint: single-file and sharded roundtrips."""
     import numpy as np
-    from cuda_selection_criteria_tpu.models.bank import SketchBank
+    from cuda_selection_criteria.models.bank import SketchBank
 
     rng = np.random.default_rng(4)
     n = 10
@@ -153,7 +153,7 @@ def test_bank_load_rejects_stale_shard_sets(tmp_path):
     error instead of silently reassembling a corrupted bank."""
     import numpy as np
     import pytest
-    from cuda_selection_criteria_tpu.models.bank import SketchBank
+    from cuda_selection_criteria.models.bank import SketchBank
 
     rng = np.random.default_rng(5)
     n = 9
@@ -180,8 +180,8 @@ def test_native_batch_loaders_match_python():
     """Threaded C++ batch loaders return identical bytes to the Python
     readers on the committed reference sketches."""
     import pytest
-    from cuda_selection_criteria_tpu.native import fastx as native
-    from cuda_selection_criteria_tpu.utils import formats
+    from cuda_selection_criteria.native import fastx as native
+    from cuda_selection_criteria.utils import formats
     from tests.conftest import reference_available
 
     if not native.available():
@@ -210,7 +210,7 @@ def test_native_batch_loaders_match_python():
 
 def test_profiling_timed_emits_row(capsys):
     import jax.numpy as jnp
-    from cuda_selection_criteria_tpu.utils.profiling import timed
+    from cuda_selection_criteria.utils.profiling import timed
 
     with timed("region") as sink:
         sink["x"] = jnp.arange(8).sum()

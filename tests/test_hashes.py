@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cuda_selection_criteria_tpu.ops import hashes
+from cuda_selection_criteria.ops import hashes
 import refmodels as rm
 
 RNG = np.random.default_rng(0xC0FFEE)

@@ -6,9 +6,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cuda_selection_criteria_tpu.models import HllSketch
-from cuda_selection_criteria_tpu.ops import hll_build
-from cuda_selection_criteria_tpu.utils import fasta, formats
+from cuda_selection_criteria.models import HllSketch
+from cuda_selection_criteria.ops import hll_build
+from cuda_selection_criteria.utils import fasta, formats
 import refmodels as rm
 from conftest import REFERENCE, reference_available
 

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from cuda_selection_criteria_tpu.ops import kmers as kmer_ops
-from cuda_selection_criteria_tpu.utils import fasta
+from cuda_selection_criteria.ops import kmers as kmer_ops
+from cuda_selection_criteria.utils import fasta
 import refmodels as rm
 from conftest import REFERENCE, reference_available
 
@@ -141,7 +141,7 @@ def test_fastq_multiline_and_mixed(tmp_path):
 
 def test_fastq_native_matches_python(tmp_path):
     """The native scanner's FASTQ state machine == the python parser."""
-    from cuda_selection_criteria_tpu.native import fastx as native
+    from cuda_selection_criteria.native import fastx as native
 
     if not native.available():
         pytest.skip("libfastx.so unavailable")
@@ -162,7 +162,7 @@ def test_fastq_native_matches_python(tmp_path):
 def test_fastq_native_build_sketches_equal_fasta(tmp_path):
     """End-to-end: native single-pass sketches built from a .fastq.gz are
     byte-identical to the .fna.gz build of the same sequences."""
-    from cuda_selection_criteria_tpu.native import fastx as native
+    from cuda_selection_criteria.native import fastx as native
 
     if not native.available():
         pytest.skip("libfastx.so unavailable")

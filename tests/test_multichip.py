@@ -7,9 +7,9 @@ import jax
 import numpy as np
 import pytest
 
-from cuda_selection_criteria_tpu.models import SketchBank
-from cuda_selection_criteria_tpu.parallel import mesh as mesh_mod
-from cuda_selection_criteria_tpu.parallel.selection import (
+from cuda_selection_criteria.models import SketchBank
+from cuda_selection_criteria.parallel import mesh as mesh_mod
+from cuda_selection_criteria.parallel.selection import (
     SelectionParams,
     select_pairs,
 )
@@ -52,9 +52,9 @@ def test_multihost_tile_slices_reassemble_exactly():
     shards (parallel.distributed) must reassemble to the single-host
     result in reference row order."""
     import numpy as np
-    from cuda_selection_criteria_tpu.parallel import distributed
-    from cuda_selection_criteria_tpu.parallel.selection import SelectionParams
-    from cuda_selection_criteria_tpu.parallel.screened import select_pairs_screened
+    from cuda_selection_criteria.parallel import distributed
+    from cuda_selection_criteria.parallel.selection import SelectionParams
+    from cuda_selection_criteria.parallel.screened import select_pairs_screened
     from tests.test_screen import _make_bank
 
     rng = np.random.default_rng(41)

@@ -1,4 +1,4 @@
-"""MXU CDF-matmul union histograms vs direct max-merge histograms."""
+"""CDF-matmul union histograms vs direct max-merge histograms."""
 
 import os
 
@@ -6,8 +6,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cuda_selection_criteria_tpu.ops import pairwise
-from cuda_selection_criteria_tpu.utils import formats
+from cuda_selection_criteria.ops import pairwise
+from cuda_selection_criteria.utils import formats
 import refmodels as rm
 from conftest import REFERENCE, reference_available
 

@@ -1,4 +1,4 @@
-"""Tests for the fused Pallas screen kernel and the screened engine.
+"""Tests for the pair screen and the screened engine.
 
 Covers (SURVEY.md section 4 test pyramid):
   * bit-level exactness of the harmonic-sum / zero-count kernel vs numpy;
@@ -14,15 +14,15 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cuda_selection_criteria_tpu.ops import screen, estimators, hll_build, smh_build
-from cuda_selection_criteria_tpu.parallel.screened import (
+from cuda_selection_criteria.ops import screen, estimators, hll_build, smh_build
+from cuda_selection_criteria.parallel.screened import (
     SCREEN_DELTA_DEFAULT,
     select_pairs_screened,
     screen_tau,
 )
-from cuda_selection_criteria_tpu.parallel.selection import SelectionParams
-from cuda_selection_criteria_tpu.models.bank import SketchBank
-from cuda_selection_criteria_tpu.utils.hostref import select_pairs_host
+from cuda_selection_criteria.parallel.selection import SelectionParams
+from cuda_selection_criteria.models.bank import SketchBank
+from cuda_selection_criteria.utils.hostref import select_pairs_host
 
 
 def _ref_s_z(ra, rb):
@@ -110,14 +110,12 @@ def test_screen_tau_is_conservative():
 ])
 @pytest.mark.parametrize("with_zeros", [True, False])
 def test_fused_kernel_matches_post(use_cb, use_smh, with_zeros):
-    """The fully-fused Pallas screen (ops/screen.screen_hits_fused, the
-    accelerator path of screened._screen_chunk) must equal the two-pass
-    screen_s_z + _screen_post form bit-for-bit - same certificate
-    compare, same gates - checked in interpret mode."""
-    from cuda_selection_criteria_tpu.parallel.screened import (
-        _screen_post,
-        band_fingerprints,
-    )
+    """The screen the engines run (screened._screen_chunk: screen_s_z +
+    _screen_post in one jit) must equal a direct numpy evaluation of the
+    same contract - S and Z from the max-merged registers, the certified
+    compare and every gate - bit for bit, with hits present."""
+    from cuda_selection_criteria.parallel.screened import (
+        _screen_chunk, _screen_post)
 
     p, ti, n = 8, 64, 192
     rng = np.random.default_rng(31 + use_cb + 2 * use_smh)
@@ -125,29 +123,53 @@ def test_fused_kernel_matches_post(use_cb, use_smh, with_zeros):
     regs = rng.integers(lo, 11, size=(n, 1 << p), dtype=np.uint8)
     e = np.sort(rng.uniform(0, 5000, n)).astype(np.float32)
     e[:3] = 0.0  # empty rows exercise the e_b > 0 mask
-    fp = np.asarray(band_fingerprints(
-        jnp.asarray(rng.integers(0, 1 << 63, size=(n, 16),
-                                 dtype=np.uint64)), 4, 4))
+    # few distinct fingerprints per band, so band hits are common
+    fp = rng.integers(0, 3, size=(n, 4)).astype(np.int32)
     vals = screen.bank_values(regs)
-    rows = jnp.asarray(np.array([0, 0, 1, 2], np.int32))
-    cols = jnp.asarray(np.array([0, 2, 1, 2], np.int32))
-    n_real = jnp.int32(n - 5)  # also exercise the tail mask
-    tau_scr = jnp.float32(0.4)
-    tau_cb = jnp.float32(0.35)
+    rows_np = np.array([0, 0, 1, 2], np.int32)
+    cols_np = np.array([0, 2, 1, 2], np.int32)
+    rows, cols = jnp.asarray(rows_np), jnp.asarray(cols_np)
+    n_real = n - 5  # also exercise the tail mask
+    tau_scr, tau_cb = np.float32(-0.5), np.float32(0.35)
 
-    got_h, got_c = screen.screen_hits_fused(
+    got_h, got_c = _screen_chunk(
         jnp.asarray(regs), rows, cols, jnp.asarray(e), jnp.asarray(fp),
-        n_real, tau_scr, tau_cb, p, vals, ti, 4, use_cb, use_smh,
-        interpret=True)
+        jnp.int32(n_real), jnp.float32(tau_scr), jnp.float32(tau_cb), p,
+        vals, ti, 4, use_cb, use_smh)
     s, z = screen.screen_s_z(jnp.asarray(regs), rows, cols, p, vals,
                              ti=ti, tj=ti)
-    want = _screen_post(s, z, jnp.asarray(e), jnp.asarray(fp), rows * ti,
-                        cols * ti, n_real, tau_scr, tau_cb, p, 4, ti, ti,
-                        use_cb, use_smh)
-    np.testing.assert_array_equal(
-        np.asarray(got_h).astype(bool), np.asarray(want))
-    np.testing.assert_array_equal(
-        np.asarray(got_c), np.asarray(want).sum((1, 2)))
+    post = np.asarray(_screen_post(
+        s, z, jnp.asarray(e), jnp.asarray(fp), rows * ti, cols * ti,
+        jnp.int32(n_real), jnp.float32(tau_scr), jnp.float32(tau_cb), p, 4,
+        ti, ti, use_cb, use_smh))
+
+    m = np.float32(1 << p)
+    want = np.zeros((4, ti, ti), bool)
+    for t, (r, c) in enumerate(zip(rows_np, cols_np)):
+        ii = r * ti + np.arange(ti)
+        jj = c * ti + np.arange(ti)
+        mx = np.maximum(regs[ii][:, None, :], regs[jj][None, :, :])
+        s_ref = np.ldexp(1.0, -mx.astype(np.int64)).sum(-1).astype(
+            np.float32)
+        z_ref = (mx == 0).sum(-1).astype(np.float32)
+        np.testing.assert_array_equal(np.asarray(s)[t], s_ref)
+        if with_zeros:
+            np.testing.assert_array_equal(np.asarray(z)[t], z_ref)
+        ea, eb = e[ii][:, None], e[jj][None, :]
+        h = ((np.float32(3) * s_ref - z_ref) * (ea + eb)
+             >= np.float32(2) * m * (m - z_ref) * (np.float32(1) + tau_scr))
+        h &= (ii[:, None] < jj[None, :]) & (jj[None, :] < n_real) & (eb > 0)
+        if use_cb:
+            h &= ea >= tau_cb * eb
+        if use_smh:
+            h &= (fp[ii][:, None, :] == fp[jj][None, :, :]).any(-1)
+        want[t] = h
+    if not with_zeros:
+        assert z is None
+    np.testing.assert_array_equal(post, want)
+    np.testing.assert_array_equal(np.asarray(got_h), want)
+    np.testing.assert_array_equal(np.asarray(got_c), want.sum((1, 2)))
+    assert want.sum() > 0
 
 
 def _planted_items(n, rng, pool_size, cap=2560):
@@ -195,10 +217,11 @@ def test_screened_engine_matches_host(crit, tau):
 
 def test_screened_sharded_matches_host():
     """Tile-sharded multi-device screened engine == host reference, on the
-    virtual 8-device CPU mesh (the TPU-world fake backend, SURVEY.md s4)."""
+    virtual 8-device CPU mesh (the fake multi-device backend, SURVEY.md
+    s4)."""
     import jax
     from jax.sharding import Mesh
-    from cuda_selection_criteria_tpu.parallel.screened import (
+    from cuda_selection_criteria.parallel.screened import (
         select_pairs_screened_sharded,
     )
 
@@ -241,7 +264,7 @@ def test_screened_engine_matches_host_hll_aux(crit):
 
 def test_hll_aux_threshold_coef_is_one_sided():
     """Exact-gate pass implies the threshold test, across a tau/zs sweep."""
-    from cuda_selection_criteria_tpu.parallel.screened import (
+    from cuda_selection_criteria.parallel.screened import (
         hll_aux_threshold_coef,
     )
 
@@ -350,8 +373,8 @@ def test_device_hist_fn_reject_bound_exact(tau):
     histogram gather) must leave the emitted pair set and Jaccard values
     bit-identical: certain rejects get the sentinel histogram, everything
     else the exact integer counts the host path would compute."""
-    from cuda_selection_criteria_tpu.parallel.screened import ScreenPlan
-    from cuda_selection_criteria_tpu.utils.hostref import PairOracle
+    from cuda_selection_criteria.parallel.screened import ScreenPlan
+    from cuda_selection_criteria.utils.hostref import PairOracle
 
     rng = np.random.default_rng(41)
     bank = _make_bank(24, 10, 16, rng)
@@ -381,8 +404,8 @@ def test_device_hist_fn_reject_bound_exact(tau):
 def test_device_hist_fn_negative_tau_never_rejects():
     """1+tau <= 0 (the tau=-100 worst-case throughput protocol) must
     disable the reject bound and return plain exact histograms."""
-    from cuda_selection_criteria_tpu.parallel.screened import ScreenPlan
-    from cuda_selection_criteria_tpu.utils.hostref import PairOracle
+    from cuda_selection_criteria.parallel.screened import ScreenPlan
+    from cuda_selection_criteria.utils.hostref import PairOracle
 
     rng = np.random.default_rng(43)
     bank = _make_bank(16, 10, 16, rng)
@@ -403,7 +426,7 @@ def test_device_hist_fn_negative_tau_never_rejects():
 def test_band_fingerprints_np_matches_device():
     """The host FNV fingerprint twin must be bit-identical to the jnp
     original for every (n_rows, n_bands) shape in use."""
-    from cuda_selection_criteria_tpu.parallel.screened import (
+    from cuda_selection_criteria.parallel.screened import (
         band_fingerprints, band_fingerprints_np)
 
     rng = np.random.default_rng(7)
@@ -419,8 +442,8 @@ def test_band_fingerprints_np_matches_device():
 def test_regpack_roundtrip_and_packed_upload():
     """Bit-plane packed upload must reproduce the dense path byte-exactly
     for any present-value alphabet, including the sorted+padded layout."""
-    from cuda_selection_criteria_tpu.ops import regpack, screen as sc
-    from cuda_selection_criteria_tpu.parallel.screened import (
+    from cuda_selection_criteria.ops import regpack, screen as sc
+    from cuda_selection_criteria.parallel.screened import (
         upload_sorted_rows)
 
     rng = np.random.default_rng(77)
@@ -452,3 +475,87 @@ def test_regpack_roundtrip_and_packed_upload():
     np.testing.assert_array_equal(dense, packed)
     assert regpack.plan_pack(range(300)) is None  # >255 values
     assert regpack.plan_pack(range(200)) is None  # k >= 8: no saving
+
+
+@pytest.mark.parametrize("platform,engine", [
+    ("gpu", "screened"), ("cpu", "dense"),
+])
+def test_resolve_engine_by_platform(monkeypatch, platform, engine):
+    """engine="auto" runs the screened engine on the GPU and the dense
+    engine on the CPU; a forced engine is kept as given."""
+    import jax
+
+    from cuda_selection_criteria.parallel import selection
+
+    rng = np.random.default_rng(5)
+    bank = _make_bank(8, 10, 16, rng)
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    monkeypatch.setattr(jax, "device_count", lambda: 1)
+    assert selection.resolve_engine(
+        bank, SelectionParams(tau=0.5)) == engine
+    assert selection.resolve_engine(
+        bank, SelectionParams(tau=0.5, engine="ring")) == "ring"
+
+
+def test_resolve_engine_ring_needs_device_memory_limit(monkeypatch):
+    """With several devices, a bank above 0.55x one device's bytes_limit
+    goes to the ring engine; a device that reports no limit is an error
+    (no size is assumed)."""
+    import jax
+
+    from cuda_selection_criteria.parallel import selection
+
+    rng = np.random.default_rng(6)
+    bank = _make_bank(8, 10, 16, rng)
+    bank_bytes = bank.regs.nbytes
+
+    class Dev:
+        def __init__(self, limit):
+            self.limit = limit
+
+        def memory_stats(self):
+            return None if self.limit is None else {"bytes_limit": self.limit}
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(jax, "device_count", lambda: 4)
+    for limit, want in ((bank_bytes, "ring"), (4 * bank_bytes, "screened")):
+        monkeypatch.setattr(jax, "devices", lambda limit=limit: [Dev(limit)])
+        assert selection.resolve_engine(bank, SelectionParams(tau=0.5)) \
+            == want
+    monkeypatch.setattr(jax, "devices", lambda: [Dev(None)])
+    with pytest.raises(RuntimeError, match="bytes_limit"):
+        selection.resolve_engine(bank, SelectionParams(tau=0.5))
+
+
+@pytest.mark.parametrize("backend,env", [
+    ("gpu", None), ("gpu", "custom"), ("cpu", None),
+])
+def test_compile_cache_dir(monkeypatch, tmp_path, backend, env):
+    """On the GPU, enable_compile_cache puts the persistent cache in one
+    fixed directory inside the checkout (which .gitignore lists) unless
+    JAX_COMPILATION_CACHE_DIR names one - JAX reads that variable itself,
+    so no other directory is set in code. The CPU stays uncached."""
+    import os
+
+    import jax
+
+    import cuda_selection_criteria as csc
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    if env is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    else:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / env))
+    try:
+        csc.enable_compile_cache()
+        got = jax.config.jax_compilation_cache_dir
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+    if backend == "gpu" and env is None:
+        assert got == os.path.join(root, ".jax_cache")
+        assert got == csc.DEFAULT_COMPILE_CACHE
+        assert ".jax_cache/" in open(os.path.join(root, ".gitignore")).read()
+    else:
+        assert got == before

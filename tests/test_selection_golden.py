@@ -6,8 +6,8 @@ import os
 
 import pytest
 
-from cuda_selection_criteria_tpu.models import SketchBank
-from cuda_selection_criteria_tpu.parallel.selection import (
+from cuda_selection_criteria.models import SketchBank
+from cuda_selection_criteria.parallel.selection import (
     SelectionParams,
     select_pairs,
     format_results,
@@ -83,9 +83,9 @@ def test_int8_precision_path():
 
 
 def test_golden_screened_engine_p14():
-    """The fused screened engine (forced, interpret mode on CPU) must
-    reproduce the golden pairs at the flagship p=14 configuration - the
-    same engine/config the TPU runs."""
+    """The screened engine (forced on the CPU) must reproduce the golden
+    pairs at the flagship p=14 configuration - the same engine/config the
+    GPU runs."""
     assert _run("smh_a", aux_bytes=32, engine="screened") == _golden_lines()
 
 
@@ -94,7 +94,7 @@ def test_golden_screened_engine_p14():
 def test_cli_engine_flag_golden(engine, capsys, tmp_path):
     """The selection CLI's --engine switch must route to the requested
     engine and still print the verbatim golden output."""
-    from cuda_selection_criteria_tpu.cli import selection
+    from cuda_selection_criteria.cli import selection
 
     lst = tmp_path / "filelist.txt"
     lst.write_text("\n".join(
@@ -117,7 +117,7 @@ def test_cli_thread_flag_preserves_golden(threads, capsys, tmp_path):
     """-t (reference: omp_set_num_threads, src/selection.cpp:113-115) is
     wired to the sketch loaders and confirm workers; any thread count must
     yield the verbatim golden output."""
-    from cuda_selection_criteria_tpu.cli import selection
+    from cuda_selection_criteria.cli import selection
 
     lst = tmp_path / "filelist.txt"
     lst.write_text("\n".join(

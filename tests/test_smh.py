@@ -7,10 +7,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cuda_selection_criteria_tpu.models import SuperMinHashSketch
-from cuda_selection_criteria_tpu.models.smh import vecsize
-from cuda_selection_criteria_tpu.ops import smh_build
-from cuda_selection_criteria_tpu.utils import fasta, formats
+from cuda_selection_criteria.models import SuperMinHashSketch
+from cuda_selection_criteria.models.smh import vecsize
+from cuda_selection_criteria.ops import smh_build
+from cuda_selection_criteria.utils import fasta, formats
 import refmodels as rm
 from conftest import REFERENCE, reference_available
 
@@ -86,8 +86,8 @@ def test_chunked_j0_min_merge_equals_full_single_pass():
     unbounded candidate min, and mins compose across pieces."""
     import numpy as np
     import jax.numpy as jnp
-    from cuda_selection_criteria_tpu.models import bank as B
-    from cuda_selection_criteria_tpu.ops import kmers as kmer_ops, smh_build
+    from cuda_selection_criteria.models import bank as B
+    from cuda_selection_criteria.ops import kmers as kmer_ops, smh_build
 
     rng = np.random.default_rng(5)
     codes = np.concatenate(
